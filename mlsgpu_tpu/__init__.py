@@ -1,6 +1,6 @@
-"""mlsgpu_tpu — TPU-native surface reconstruction from massive point clouds.
+"""mlsgpu_tpu — surface reconstruction from massive point clouds on GPUs.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of bmerry/mlsgpu
+A ground-up JAX/XLA re-design of the capabilities of bmerry/mlsgpu
 (moving-least-squares implicit surfaces + marching tetrahedra over out-of-core
 point clouds). See DESIGN.md for the architecture and SURVEY.md for the
 reference analysis.

@@ -1,7 +1,7 @@
 """Configuration schema with the reference's option surface and defaults.
 
 Mirrors the option names/defaults of src/mlsgpu_core.cpp:86-137 plus
-TPU-specific knobs (device caps). Capacity values accept B/K/M/G suffixes like
+device-specific knobs (static-shape caps). Capacity values accept B/K/M/G suffixes like
 the reference's Capacity wrapper (src/options.h:44-120).
 """
 
@@ -47,7 +47,7 @@ class ReconstructConfig:
     # Largest device dispatch: 2^shift corners per axis (the dense MLS
     # corner field of one dispatch lives in HBM; 2^10 = 4.3 GiB f32).
     # Bucket volumes larger than this stream through the device as aligned
-    # sub-volume dispatches — the TPU analogue of the reference's z-swathe
+    # sub-volume dispatches — the analogue of the reference's z-swathe
     # streaming of one block (src/marching.cpp:783-823, src/marching.h:67-80),
     # which is how it reaches its 2^13 block bound on bounded device memory.
     device_block_shift: int = 10
@@ -64,7 +64,7 @@ class ReconstructConfig:
     # disk-resident store takes over (the reference always uses temp files,
     # src/splat_set.h:824-849)
 
-    # --- device caps (TPU static shapes; overflow => retry grown to a
+    # --- device caps (static shapes; overflow => retry grown to a
     # near-fit eighth-pow2 step — cap slop is wall time in the cap-sized
     # marching/weld stages, and the grown values persist across runs via
     # the caps cache) ---
@@ -75,11 +75,10 @@ class ReconstructConfig:
     index_cap: int = 3 << 18           # index cap per block
 
     # --- pipeline ---
-    mls_backend: str = "auto"        # 'auto' | 'xla' | 'pallas'
     readback: str = "auto"           # 'auto' | 'codes' | 'packed' | 'raw'
     device_threads: int = 1
     sizing_probe: bool = True        # pre-run the densest bucket to grow
-    # caps before streaming (kills mid-run recompiles, ~80 s each); tests
+    # caps before streaming (kills mid-run recompiles); tests
     # that drive the mid-run growth path disable it
     eager_write: bool = True         # chunked outputs: write each chunk as
     # its last block lands (overlaps the final write with device compute);
@@ -138,7 +137,7 @@ class ReconstructConfig:
         if not (4 <= self.device_block_shift <= 10):
             # The dense MLS corner field of one device dispatch must fit
             # HBM ((2^10)^3 f32 = 4.3 GiB). Volumes larger than this are
-            # streamed through the device as aligned sub-volumes (the TPU
+            # streamed through the device as aligned sub-volumes (the
             # analogue of the reference's z-swathe streaming,
             # src/marching.cpp:783-823); see device_block_cells.
             raise InvalidOption("device_block_shift must be in 4..10")

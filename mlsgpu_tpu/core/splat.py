@@ -1,8 +1,8 @@
 """Splat data model.
 
 The reference stores splats as an AoS POD (src/splat.h:40-61: position[3],
-radius, normal[3], quality). On TPU we keep a single dense (N, 8) float32
-array — one DMA-friendly layout, directly consumable as the K x 8 operand of
+radius, normal[3], quality). Here we keep a single dense (N, 8) float32
+array — one contiguous layout, directly consumable as the K x 8 operand of
 the MLS moment matmuls (see DESIGN.md). Column order:
 
     0:x 1:y 2:z 3:radius 4:nx 5:ny 6:nz 7:quality

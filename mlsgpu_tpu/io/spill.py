@@ -1,6 +1,6 @@
 """Append-only spill store with an in-memory window and async disk flush.
 
-The TPU build's analogue of the reference's mesher reorder buffer plus
+This build's analogue of the reference's mesher reorder buffer plus
 TmpWriterWorkerGroup (src/mesher.h:514-620, --mem-reorder): producers append
 record batches and get back stable byte offsets; data stays in RAM up to a
 byte budget, beyond which a background thread streams the oldest buffers to
@@ -88,12 +88,10 @@ class SpillStore:
     def _flush_loop(self) -> None:
         import time as _time
         stats_timer = self._stats.timer("spill.flush")
-        # On a 1-core host the flusher's WALL time is dominated by GIL
-        # waits while the main thread computes (measured: 503 s wall at
-        # 100M vs ~33 s of actual IO at the disk's 538 MB/s). Record CPU
+        # On a busy host the flusher's WALL time is dominated by GIL
+        # waits while the main thread computes, not by IO. Record CPU
         # seconds and bytes alongside so the dump separates real work from
-        # scheduling (the r4 number read as a host-side bottleneck it
-        # is not).
+        # scheduling.
         cpu_var = self._stats.variable("spill.flushCpu")
         bytes_ctr = self._stats.counter("spill.flushBytes")
         while True:

@@ -1,4 +1,4 @@
-"""Splat binning: the TPU re-expression of the reference's GPU octree.
+"""Splat binning: the sort-based re-expression of the reference's GPU octree.
 
 The reference builds a pointer-chained command list per leaf
 (src/splat_tree_cl.{h,cpp} + kernels/octree.cl + clogs radix sort/scan).
@@ -95,10 +95,8 @@ def bin_splats(splats: jnp.ndarray, valid: jnp.ndarray,
     r = splats[:, 3]
 
     # Everything below runs on per-axis (N,) vectors, NOT (N, 3) arrays: a
-    # trailing dim of 3 puts 3 values in 128-wide VPU lanes (~2% lane
-    # utilization) and cost a measured 25 ms/block for the key pass alone;
-    # the per-axis form is bitwise identical (same elementwise ops) at full
-    # lane width.
+    # trailing dim of 3 pads poorly in vector layouts; the per-axis form is
+    # bitwise identical (same elementwise ops).
     px = [splats[:, a] for a in range(3)]
     org = [cell_origin[a].astype(jnp.int32) for a in range(3)]
     lo_g = [jnp.floor(px[a] - r).astype(jnp.int32) for a in range(3)]

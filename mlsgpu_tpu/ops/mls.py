@@ -1,13 +1,13 @@
-"""Signed-distance field evaluation: the TPU form of kernels/mls.cl.
+"""Signed-distance field evaluation: the XLA form of kernels/mls.cl.
 
 The reference's `processCorners` (kernels/mls.cl:299-433) walks an octree
 command list per 8x8x8-corner workgroup, staging splats into local memory and
 accumulating weighted moments per corner. Here the walk is already resolved
 into per-tile contiguous segments (ops/binning.py); the accumulation is
-restructured as dense linear algebra so it runs on the MXU:
+restructured as dense linear algebra:
 
   pairwise |x - c|^2 = |x|^2 - 2 c.x + |c|^2     -> one (512,3)x(3,K) matmul
-  weights  w = relu(1-d)^4 * quality * mask       -> VPU elementwise
+  weights  w = relu(1-d)^4 * quality * mask       -> elementwise
   moments  M = W @ [1, x, |x|^2, n, n.x]          -> one (512,K)x(K,9) matmul
 
 Positions are re-centered on each tile's origin before the matmuls so the
@@ -125,10 +125,8 @@ def eval_field(entry_data: jnp.ndarray,
             jnp.ones_like(x2)[..., None], x, x2[..., None], nrm, ndotx[..., None],
         ], axis=-1)                              # (C, K, 9)
 
-        # HIGHEST precision: on TPU the default f32 matmul runs in bf16 MXU
-        # passes, whose ~8-bit mantissa is catastrophic for |x-c|^2 expansion
-        # (ulp(c.x) ~ 0.25 at block scale). HIGHEST uses the 6-pass f32
-        # emulation and restores ~1e-6 relative accuracy.
+        # HIGHEST keeps f32 instead of TF32: a reduced-mantissa product is
+        # catastrophic for the |x-c|^2 expansion.
         dotcx = jnp.einsum("cd,tkd->tck", corners, x,
                            precision=jax.lax.Precision.HIGHEST,
                            preferred_element_type=jnp.float32)           # (C, 512, K)
@@ -350,7 +348,7 @@ def canonical_face_field(field: jnp.ndarray,
         # Axis selection by one-hot arithmetic (integer one-hots and
         # coordinate values are exact in f32, so values are bitwise equal
         # to a gather) — C*4K per-element axis gathers were a measured
-        # face-pass hot spot; three fused multiply-reduces are VPU-cheap.
+        # face-pass hot spot; three fused multiply-reduces are cheap.
         ar3 = jnp.arange(3)[None, :]
         oh_a = (ar3 == aa[:, None]).astype(jnp.float32)      # (C, 3)
         oh_b = (ar3 == bj[:, None]).astype(jnp.float32)
@@ -456,8 +454,7 @@ def canonical_face_field(field: jnp.ndarray,
 
     # Assemble each face's patches into a dense plane image and write it
     # with ONE sliced update per face: the previous formulation scattered
-    # nrows*64 individual corners into the dense field (TPU scatters
-    # serialize). The patch grid tiles the whole plane, so a reshape/
+    # nrows*64 individual corners into the dense field. The patch grid tiles the whole plane, so a reshape/
     # transpose of `out` IS the plane image; a dynamic slice drops the
     # pre-origin overhang (org mod 8). Sequential face order (x-, x+, y-,
     # y+, z-, z+) makes the edge-overlap winner the highest axis in EVERY

@@ -3,8 +3,8 @@ JAX (uint32, 10 bits/axis).
 
 The reference interleaves bits with a scalar loop per item
 (kernels/octree.cl:121-135 makeCode / mls.cl:183 decode); here the interleave
-is branch-free magic-number bit spreading so it vectorizes on the VPU and in
-numpy. Codes are z-major (z bits above y above x), matching the reference.
+is branch-free magic-number bit spreading so it vectorizes on the device and
+in numpy. Codes are z-major (z bits above y above x), matching the reference.
 """
 
 from __future__ import annotations

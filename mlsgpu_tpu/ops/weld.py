@@ -37,8 +37,7 @@ def weld(vertices: jnp.ndarray,
          triangles: jnp.ndarray,
          num_unwelded: jnp.ndarray,
          num_indices: jnp.ndarray) -> WeldedMesh:
-    """Sort/gather-only formulation: TPU scatters serialize, so the
-    representative compaction and the old->new remap are expressed as two
+    """Sort/gather-only formulation: the representative compaction and the old->new remap are expressed as two
     extra sorts plus contiguous gathers instead of five cap-sized
     scatters."""
     cap = vertices.shape[0]

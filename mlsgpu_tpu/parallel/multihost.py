@@ -20,7 +20,7 @@ Role mapping from the reference (SURVEY.md §2.9, mlsgpu-mpi.cpp):
 - P10 progress / statistics -> statistics registries are all-gathered and
   merged on rank 0 (mlsgpu-mpi.cpp:302-339).
 
-Transports: `JaxTransport` rides jax.distributed (DCN/ICI); `LocalTransport`
+Transports: `JaxTransport` rides jax.distributed; `LocalTransport`
 is the in-process fake used by tests (the reference tests the same logic
 with `mpirun -n 4` on one box, wscript:543-551).
 """
@@ -71,7 +71,7 @@ class Transport:
         """A cross-process fetch-and-add counter (`claim() -> int`, each call
         returns a globally unique increasing index), or None when the
         transport has no side channel. Backs the dynamic work queue — the
-        TPU-native analogue of the reference's pull-model scatter (slaves
+        JAX analogue of the reference's pull-model scatter (slaves
         MPI_Sendrecv NEED_WORK, master answers; mlsgpu-mpi.cpp:202-246)."""
         return None
 
@@ -582,7 +582,7 @@ def reconstruct_distributed(source: SplatSource, cfg: ReconstructConfig,
         chunk_cells=chunk_cells, max_split=cfg.max_split)
 
     # Work distribution. Dynamic (default): chunks are claimed one at a time
-    # from a shared fetch-and-add queue, largest first — the TPU-native
+    # from a shared fetch-and-add queue, largest first — the JAX
     # analogue of the reference's pull-model scatter (slaves request work,
     # the master answers, mlsgpu-mpi.cpp:202-246) — so a skewed input
     # self-balances. Static: one-shot greedy assignment (deterministic,
@@ -615,12 +615,11 @@ def reconstruct_distributed(source: SplatSource, cfg: ReconstructConfig,
         log.info(f"rank {transport.rank}: {len(mine)}/{len(buckets)} buckets")
         mine_iter = iter(mine)
 
-    from mlsgpu_tpu.pipeline.reconstruct import default_occ_tile_cap
     mesher = OOCMesher(info.grid, prune=cfg.fit_prune,
                        reorder_budget=cfg.mem_reorder)
     mesher.chunk_cells = chunk_cells
     caps = BlockCaps(cfg.tile_candidates, cfg.cell_cap, cfg.vertex_cap,
-                     cfg.index_cap, occ_tile_cap=default_occ_tile_cap(cfg))
+                     cfg.index_cap)
     progress = DistributedProgress(transport,
                                    total=sum(b.num_splats for b in buckets),
                                    show=cfg.progress)

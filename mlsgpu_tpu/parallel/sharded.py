@@ -14,7 +14,7 @@ XLA programs (SURVEY.md §2.9 mapping):
   src/splat_set_mpi.h:129-169).
 
 All functions build on `shard_map` so they compile to one SPMD program with
-XLA-inserted collectives over ICI.
+XLA-inserted collectives (NCCL between GPUs).
 """
 
 from __future__ import annotations
@@ -24,14 +24,10 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from mlsgpu_tpu.ops.block import BlockResult, block_step_body
-
-try:  # jax >= 0.4.35
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 
 def make_mesh(devices=None, axis: str = "d") -> Mesh:

@@ -7,13 +7,13 @@ emits the largest aligned regions satisfying both the cell budget (device
 block size) and the splat budget. Counts come from the blob ranges, so no
 second pass over the input is needed.
 
-Differences from the reference, chosen for the TPU pipeline:
+Differences from the reference, chosen for the device pipeline:
 - counts live in a dense microblock grid (numpy) instead of a hashed sparse
   octree — trivially vectorized, and even a 2^20-cell extent is only a
   ~256^3 microblock grid at the default 63-cell microblock;
 - regions are rectangular boxes of microblocks on a power-of-two-aligned
   tiling, binary-split only where the splat budget is exceeded — padding to
-  the static device block shape is cheap on TPU (see bucket_regions for why
+  the static device block shape is cheap (see bucket_regions for why
   alignment is load-bearing);
 - a splat spanning multiple microblocks is counted in each (the reference
   counts it once per intersecting region as well: both are the conservative
@@ -85,7 +85,7 @@ def microblock_counts(blobs: BlobArray, micro_lo: np.ndarray,
     # Spanning blobs, vectorized per span offset: splat radii are a few
     # cells, so spans are 0..1 microblocks per axis almost always — a
     # handful of masked bincounts covers them all (a per-blob Python loop
-    # here cost minutes at 100M+ splats; see PLAN.md round 4).
+    # here cost minutes at 100M+ splats).
     multi = np.nonzero(~single)[0]
     small = multi[(span[multi] < _SPAN_VEC).all(axis=1)]
     if len(small):
@@ -239,7 +239,7 @@ def bucket_regions(counts: np.ndarray, micro_cells: int, grid_cells: np.ndarray,
     ~1 boundary edge per 4k triangles with non-pow2 56-cell tiles). The
     reference merges sibling runs into non-pow2 regions (src/bucket_impl.h)
     but its per-corner octree walk is alignment-independent; ours is the
-    price of the sort/matmul formulation. See PLAN.md.
+    price of the sort/matmul formulation.
 
     Raises DensityError when a single microblock exceeds max_splats
     (reference src/bucket.h:53-64)."""
@@ -329,7 +329,7 @@ def assign_blobs(blobs: BlobArray, micro_lo: np.ndarray,
     # its own tile's blobs. Tile-spanning blobs (rare: tiles are many
     # microblocks wide) are expanded vectorized per span offset; a per-blob
     # scan of them for every region cost O(R * B_multi) = minutes at 100M+
-    # splats (see PLAN.md round 4).
+    # splats.
     pair_keys = [(tl[single, 0] * tdim[1] + tl[single, 1]) * tdim[2]
                  + tl[single, 2]]
     pair_ids = [ids[single]]

@@ -4,7 +4,7 @@ The single-host orchestration (the reference's run(), mlsgpu.cpp:83-184):
 blob pass -> bucketing -> per-bucket device block step -> mesher -> write.
 Device work is fed through the streaming executor (pipeline/streamer.py) so
 host loading, device compute, and mesher consumption overlap; with multiple
-local TPU chips buckets round-robin across them (the reference's P2-P4
+local devices buckets go to whichever has the most spare capacity (the reference's P2-P4
 pipelining and P3 multi-GPU load balancing, src/workers.*).
 
 Static-shape policy (XLA): splat batches are padded to power-of-two sizes,
@@ -44,30 +44,9 @@ class BlockCaps:
     cell_cap: int
     vertex_cap: int
     index_cap: int
-    # occupied-MLS-tile cap for the pallas backend's compacted grid
-    # (ops/mls_pallas.py); 0 = no compaction. Grown on overflow like the
-    # rest.
-    occ_tile_cap: int = 0
     # candidate-tile cap for the tile-compacted marching classification
     # (ops/marching.py); 0 = dense. Grown on overflow like the rest.
     march_tile_cap: int = 0
-
-
-# The pallas kernel's compacted occupied-tile list is a scalar-prefetch
-# argument and lives in SMEM (~1 MiB/core): 262144 int32 entries overflow
-# it (measured: a 1023^3-dispatch compile failed with "Used 1.02M of 1.00M
-# smem"). Blocks whose surface crosses more tiles than this must run with
-# a smaller --device-block-shift.
-MAX_OCC_TILE_CAP = 180224
-
-
-def default_occ_tile_cap(cfg) -> int:
-    """Initial occupied-tile cap: an eighth of the tile grid (a surface
-    crosses a few percent of tiles; 1/8 leaves growth headroom without
-    wasting grid steps), bounded by the SMEM scalar-prefetch limit."""
-    tpa = (cfg.device_block_cells + 1) // 8
-    num_tiles = tpa ** 3
-    return min(max(min(num_tiles, 512), num_tiles // 8), MAX_OCC_TILE_CAP)
 
 
 def default_march_tile_cap(cfg) -> int:
@@ -75,12 +54,10 @@ def default_march_tile_cap(cfg) -> int:
     classification path. Candidacy is any-finite-corner (a superset of
     MLS-occupied: the face/skeleton passes widen the finite set slightly).
 
-    Measured on the bench block (256^3 corners, r5): dense classify runs in
-    38 ms vs 73 ms tiled — the tiled path's (tile_cap, 9^3) candidate
-    gather costs more than classifying the whole volume with shifted dense
-    views, because TPU random gathers are per-element latency-bound. Tile
-    compaction only pays once the volume is big enough that dense sign
-    passes dominate (~512^3+), so it engages above 2^8 corners/axis."""
+    Dense classification uses shifted views of the whole volume; the tiled
+    path gathers (tile_cap, 9^3) candidate corners instead, which pays only
+    once dense sign passes over the volume dominate, so tiling engages
+    above 2^8 corners/axis."""
     if cfg.device_block_cells + 1 <= (1 << 8):
         return 0
     g = -(-cfg.device_block_cells // 8)
@@ -100,8 +77,8 @@ def _caps_cache_key(cfg) -> str:
     # should not inflate the programs of an unrelated small run. v2:
     # eighth-pow2 near-fit growth (old pow2-grown entries must not pin the
     # fat caps). v3: fit_grid joins the key — per-block vertex/cell demand
-    # scales with splat density per cell, so a 100M OOC run (fine grid)
-    # was growing the 2M bench's entry to 7x caps (measured r5).
+    # scales with splat density per cell, so a fine-grid out-of-core run
+    # must not grow the caps of a coarser run.
     return (f"v3.L{cfg.device_levels}.S{cfg.subsampling}.{cfg.fit_shape}"
             f".M{cfg.max_device_splats}.G{cfg.fit_grid:.4g}")
 
@@ -110,12 +87,11 @@ def load_cached_caps(cfg) -> "BlockCaps":
     """Start from the largest caps any previous run with this geometry
     grew to: every cap growth costs a retry plus a fresh block_step
     compile, so persisting them makes repeat runs single-program (the
-    compile-cache companion; see cli._enable_compile_cache)."""
+    compile-cache companion; see cli.enable_compile_cache)."""
     import json
     import os
     caps = BlockCaps(cfg.tile_candidates, cfg.cell_cap, cfg.vertex_cap,
-                     cfg.index_cap, occ_tile_cap=default_occ_tile_cap(cfg),
-                     march_tile_cap=default_march_tile_cap(cfg))
+                     cfg.index_cap, march_tile_cap=default_march_tile_cap(cfg))
     try:
         with open(_caps_cache_path()) as f:
             saved = json.load(f).get(_caps_cache_key(cfg))
@@ -127,8 +103,6 @@ def load_cached_caps(cfg) -> "BlockCaps":
                                   int(saved.get("vertex_cap", 0)))
             caps.index_cap = max(caps.index_cap,
                                  int(saved.get("index_cap", 0)))
-            caps.occ_tile_cap = max(caps.occ_tile_cap,
-                                    int(saved.get("occ_tile_cap", 0)))
             # march_tile_cap == 0 means the dense path was CHOSEN for this
             # geometry (faster below 512^3); a cached tiled cap must not
             # re-enable tiling.
@@ -156,7 +130,6 @@ def save_cached_caps(cfg, caps: "BlockCaps") -> None:
             "cell_cap": caps.cell_cap,
             "vertex_cap": caps.vertex_cap,
             "index_cap": caps.index_cap,
-            "occ_tile_cap": caps.occ_tile_cap,
             "march_tile_cap": caps.march_tile_cap,
         }
         tmp = path + ".tmp"
@@ -206,9 +179,7 @@ def run_block(splats_padded: np.ndarray, valid: np.ndarray,
     if device is not None:
         args = {k: jax.device_put(v, device) for k, v in args.items()}
 
-    from mlsgpu_tpu.ops.block import resolve_mls_backend
     from mlsgpu_tpu.pipeline.streamer import _check_overflow
-    backend = resolve_mls_backend(getattr(cfg, "mls_backend", "auto"))
     attempt = 0
     while True:
         result = block_step(
@@ -218,7 +189,6 @@ def run_block(splats_padded: np.ndarray, valid: np.ndarray,
             max_candidates=caps.max_candidates,
             cell_cap=caps.cell_cap, vertex_cap=caps.vertex_cap,
             index_cap=caps.index_cap, fit_shape=cfg.fit_shape,
-            mls_backend=backend, occ_tile_cap=caps.occ_tile_cap,
             march_tile_cap=caps.march_tile_cap)
         if not _check_overflow(result, caps, caps, attempt=attempt):
             return result

@@ -20,7 +20,7 @@ I32 = 4
 
 
 def estimate_block_usage(cfg: ReconstructConfig) -> Dict[str, int]:
-    """Approximate peak HBM bytes for one jitted block step."""
+    """Approximate peak device bytes for one jitted block step."""
     b = 1 << cfg.device_shift  # corners of one device dispatch
     cells = (b - 1) ** 3
     npad = next_pow2(cfg.max_device_splats)
@@ -38,26 +38,23 @@ def estimate_block_usage(cfg: ReconstructConfig) -> Dict[str, int]:
         # unwelded vertices/keys/triangles + weld sort double-buffers
         "weld": (cfg.vertex_cap * (3 * F32 + 2 * I32) * 2
                  + cfg.index_cap * I32 * 2),
+        # the MLS field materializes per-chunk weight tensors
+        "mls_weights": 32 * 512 * cfg.tile_candidates * F32 * 3,
     }
-    if cfg.mls_backend == "xla":
-        # XLA path materializes per-chunk weight tensors
-        usage["mls_weights"] = 32 * 512 * cfg.tile_candidates * F32 * 3
     usage["total"] = sum(usage.values())
     return usage
 
 
 def device_memory_bytes(device=None) -> Optional[int]:
+    """The device's memory limit from `memory_stats()`, or None (logged)
+    when the device reports none: the limit is never guessed."""
     import jax
     device = device or jax.devices()[0]
-    try:
-        stats = device.memory_stats()
-        if stats and "bytes_limit" in stats:
-            return int(stats["bytes_limit"])
-    except Exception:
-        pass
-    kind = getattr(device, "device_kind", "")
-    if "v5 lite" in kind or "v5e" in kind:
-        return 16 * 1024 ** 3
+    stats = device.memory_stats()
+    if stats and "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
+    log.info(f"device {device.device_kind!r} reports no memory limit; "
+             "skipping the block-step memory check")
     return None
 
 

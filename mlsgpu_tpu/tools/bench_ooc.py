@@ -12,7 +12,7 @@ spill-based mesher, streamed two-pass write.
 
 Usage:
     python -m mlsgpu_tpu.tools.bench_ooc --splats 100000000 \
-        --mem-blobs 256M --out /tmp/ooc.ply
+        --mem-blobs 256M --out OUT_DIR/ooc.ply
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import json
 import os
 import resource
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,8 +45,8 @@ class ProceduralScanSource(SplatSource):
         # MLS support still reaches every corner of a surface-crossing
         # cell — at reach < ~1.7 cells (the cell diagonal) corners beyond
         # the splats' support go NaN and the surface turns to swiss
-        # cheese (measured: a grid-scale 2.5 run with unscaled radii had
-        # HALF its cut-plane vertices on open boundaries).
+        # cheese (half the cut-plane vertices of a grid-scale 2.5 run with
+        # unscaled radii sat on open boundaries).
         self._sr = 3.0 * np.sqrt(4 * np.pi * radius ** 2 / n) * splat_scale
         # Coherence ordering: sample directions in a coarse lat-long sweep
         # with deterministic jitter — consecutive ids are spatial neighbors
@@ -64,9 +65,8 @@ class ProceduralScanSource(SplatSource):
 
     def _gen_ids(self, ids: np.ndarray) -> np.ndarray:
         # Chunk the vectorized generation: the f64 temporaries of a multi-M
-        # id batch blow the cache hierarchy (measured 243 ns/splat at 414k
-        # ids vs 1132 ns/splat at 8.4M on this host), so bound the working
-        # set and write into one preallocated output.
+        # id batch blow the cache hierarchy, so bound the working set and
+        # write into one preallocated output.
         step = 512 * 1024
         if len(ids) <= step:
             return self._gen_ids_block(ids)
@@ -110,8 +110,7 @@ class ProceduralScanSource(SplatSource):
 
     def read_ranges(self, ranges):
         # One vectorized generation over all ranges: per-call numpy overhead
-        # (~140 us) dominates when a bucket reads thousands of short blob
-        # runs (measured 788 -> ~250 ns/splat at 1B-scale bucket loads).
+        # dominates when a bucket reads thousands of short blob runs.
         ranges = list(ranges)
         if not ranges:
             return np.empty((0, 8), np.float32)
@@ -127,7 +126,8 @@ def peak_rss_bytes() -> int:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--splats", type=int, default=100_000_000)
-    p.add_argument("--out", default="/tmp/mlsgpu_ooc/out.ply")
+    p.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                 "mlsgpu_ooc", "out.ply"))
     p.add_argument("--levels", type=int, default=6)
     p.add_argument("--device-shift", type=int, default=None,
                    help="--device-block-shift: log2 corners per device "
@@ -162,8 +162,8 @@ def main(argv=None):
                         "(tools/verify_chunks); 0 = skip")
     args = p.parse_args(argv)
 
-    from mlsgpu_tpu.cli import _enable_compile_cache
-    _enable_compile_cache()
+    from mlsgpu_tpu.cli import enable_compile_cache
+    enable_compile_cache()
     from mlsgpu_tpu.config import ReconstructConfig, parse_capacity
     from mlsgpu_tpu.pipeline.reconstruct import reconstruct
     from mlsgpu_tpu.utils.statistics import get_registry
@@ -176,8 +176,8 @@ def main(argv=None):
     spacing = (src.splat_radius / splat_scale) / 3.0 * args.grid_scale
 
     # Localize RSS spikes per phase (the budgets bound the tracked
-    # containers, but ru_maxrss is process-wide; a 1B run measured an
-    # 85 GB spike none of the tracked peaks explained).
+    # containers, but ru_maxrss is process-wide, so a spike none of the
+    # tracked peaks explains shows only here).
     import threading
 
     def _rss_watch():

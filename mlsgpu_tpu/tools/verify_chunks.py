@@ -211,8 +211,8 @@ def check_continuity(chunks: Dict[Tuple[int, int, int], str], geom: dict,
             only_b = np.setdiff1d(sb, sa)
             # A one-sided on-plane vertex is a CRACK only when the other
             # file has geometry within a few ULPS of it but not bitwise
-            # equal (float-nondeterminism twins differ by ~1 ulp; see
-            # PLAN.md's seam analysis). With no ulp-near twin it is a
+            # equal (float-nondeterminism twins differ by ~1 ulp). With no
+            # ulp-near twin it is a
             # legitimate open-surface boundary at the cut plane: the
             # adjacent cell on the other side was undefined (boundary-
             # limit rejection, kernels/mls.cl:394-426) — the reference's
@@ -285,14 +285,23 @@ def verify(base: str, sample: int = 10, continuity: bool = True,
     geom = parse_geom_comment(next(iter(chunks.values()))) if chunks else None
     result: dict = {"chunks": len(chunks)}
     result["manifold"] = sample_manifold(chunks, sample, log=log)
-    if continuity and not single:
-        if geom is None:
-            result["continuity"] = {"note": "no geom comment; skipped"}
+    ok = result["manifold"]["failures"] == 0
+    if continuity:
+        # A requested continuity pass that could not run is a failure,
+        # not a pass: a caller relying on `ok` must know the seams went
+        # unchecked.
+        if single or not chunks:
+            result["continuity"] = {"note": "not a chunked output; "
+                                            "continuity not checked"}
+            ok = False
+        elif geom is None:
+            result["continuity"] = {"note": "no geom comment; "
+                                            "continuity not checked"}
+            ok = False
         else:
             result["continuity"] = check_continuity(chunks, geom, log=log)
+            ok = ok and result["continuity"]["mismatched_pairs"] == 0
     result["elapsed_s"] = round(time.monotonic() - t0, 1)
-    ok = (result["manifold"]["failures"] == 0
-          and result.get("continuity", {}).get("mismatched_pairs", 0) == 0)
     result["ok"] = ok
     return result
 

@@ -56,8 +56,7 @@ def eval_block(splats, origin, region, max_candidates=2048, points=None):
 
 
 def test_shared_face_bitwise_equal_across_cap_growth():
-    """The documented seam-crack risk case (PLAN.md 'Cap growth vs
-    determinism'): a cap retry mid-run leaves adjacent blocks computed by
+    """The seam-crack risk case of cap growth vs determinism: a cap retry mid-run leaves adjacent blocks computed by
     programs with DIFFERENT max_candidates. The canonical face pass must
     make the shared plane bitwise equal anyway — its candidate lists are
     canonicalized (exact rectangle filter + dedup + full-feature sort) and

@@ -103,12 +103,13 @@ class TestFieldEval:
     LEVELS = 3
     SUB = 3  # block = 2^(3+3-1) = 32 corners
 
-    def _eval(self, splats_np, K=256, fit="sphere", bf=0.0):
+    def _eval(self, splats_np, K=256, fit="sphere", bf=0.0, origin=(0, 0, 0),
+              valid=True, with_lens=False):
         n = splats_np.shape[0]
         splats = jnp.asarray(splats_np)
-        valid = jnp.ones(n, dtype=bool)
+        valid = jnp.full(n, valid, dtype=bool)
         min_s, max_s = self.SUB, self.LEVELS + self.SUB - 1
-        origin = jnp.zeros(3, jnp.int32)
+        origin = jnp.asarray(origin, jnp.int32)
         binned = binning.bin_splats(splats, valid, origin, min_s, max_s)
         tpa = 1 << (max_s - 3)
         starts, lens = binning.tile_segments(binned.entry_keys, min_s, max_s, tpa)
@@ -116,12 +117,16 @@ class TestFieldEval:
             binned.entry_data, starts, lens, origin, tpa, K, fit,
             jnp.float32(bf), tile_chunk=8)
         assert int(max_total) <= K
+        if with_lens:
+            return np.asarray(field), np.asarray(lens), tpa
         return np.asarray(field)
 
-    def _oracle_field(self, splats_np, b, bf=0.0, fit="sphere"):
+    def _oracle_field(self, splats_np, b, bf=0.0, fit="sphere",
+                      origin=(0, 0, 0)):
         g = np.arange(b)
         zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
         corners = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], 1).astype(np.float64)
+        corners += np.asarray(origin, np.float64)
         ref = oracle.mls_field_bruteforce(splats_np, corners, bf, fit)
         return ref.reshape(b, b, b)
 
@@ -179,6 +184,46 @@ class TestFieldEval:
         got = self._eval(splats)
         # far corner: no splats anywhere near -> NaN
         assert np.isnan(got[31, 31, 31])
+
+    def test_boundary_factor_matches_oracle(self):
+        """A nonzero boundary limit rejects the corners the oracle rejects."""
+        rng = np.random.default_rng(34)
+        splats = oracle.plane_cloud(15.5, 20.0, 1500, 2.0, rng)
+        got = self._eval(splats, K=1024, bf=0.75)
+        ref = self._oracle_field(splats, 32, bf=0.75)
+        assert np.mean(np.isfinite(got) == np.isfinite(ref)) > 0.999
+        both = np.isfinite(got) & np.isfinite(ref)
+        assert both.sum() > 500
+        assert np.quantile(np.abs(got[both] - ref[both]), 0.99) < 2e-3
+
+    def test_nonzero_origin_matches_oracle(self):
+        """A block away from the grid origin evaluates its own corners."""
+        rng = np.random.default_rng(35)
+        origin = (32, 64, 96)
+        splats = oracle.sphere_cloud([48.0, 79.0, 111.0], 9.0, 1500, 2.0, rng)
+        got = self._eval(splats, K=1024, origin=origin)
+        ref = self._oracle_field(splats, 32, origin=origin)
+        assert np.mean(np.isfinite(got) == np.isfinite(ref)) > 0.999
+        both = np.isfinite(got) & np.isfinite(ref)
+        assert both.sum() > 1000
+        assert np.quantile(np.abs(got[both] - ref[both]), 0.99) < 2e-3
+
+    def test_tiles_without_candidates_all_nan(self):
+        """Every corner of a tile whose segments are empty is undefined."""
+        rng = np.random.default_rng(33)
+        splats = oracle.sphere_cloud([8.0, 8.0, 8.0], 3.0, 600, 1.5, rng)
+        got, lens, tpa = self._eval(splats, with_lens=True)
+        totals = lens.sum(axis=1).reshape(tpa, tpa, tpa)
+        assert (totals == 0).any() and (totals > 0).any()
+        tiles = got.reshape(tpa, 8, tpa, 8, tpa, 8).transpose(0, 2, 4, 1, 3, 5)
+        assert np.isnan(tiles[totals == 0]).all()
+
+    def test_no_valid_splats_all_nan(self):
+        splats = oracle.sphere_cloud([8.0, 8.0, 8.0], 3.0, 64, 1.5,
+                                     np.random.default_rng(36))
+        got = self._eval(splats, valid=False)
+        assert got.shape == (32, 32, 32)
+        assert np.isnan(got).all()
 
     def test_candidate_overflow_reported(self):
         rng = np.random.default_rng(15)

@@ -1,5 +1,5 @@
 """Unit tests for the quantized single-transfer readback packing
-(ops/block._pack_readback / unpack_readback) — the TPU analogue of the
+(ops/block._pack_readback / unpack_readback) — the analogue of the
 reference's sized 3-event enqueueReadMesh (src/mesh.h:141-179).
 
 A synthetic welded mesh is built the way ops/marching.py builds real ones

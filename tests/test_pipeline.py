@@ -364,11 +364,11 @@ def test_caps_cache_roundtrip(tmp_path, monkeypatch):
     caps = rec.load_cached_caps(cfg)
     base_vertex = caps.vertex_cap
     caps.vertex_cap = base_vertex * 4
-    caps.occ_tile_cap *= 2
+    caps.cell_cap *= 2
     rec.save_cached_caps(cfg, caps)
     again = rec.load_cached_caps(cfg)
     assert again.vertex_cap == base_vertex * 4
-    assert again.occ_tile_cap == caps.occ_tile_cap
+    assert again.cell_cap == caps.cell_cap
     # different geometry key is unaffected
     other = rec.load_cached_caps(ReconstructConfig(levels=5))
     assert other.vertex_cap == ReconstructConfig(levels=5).vertex_cap

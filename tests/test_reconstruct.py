@@ -191,8 +191,7 @@ class TestEndToEnd:
         check_sphere_output(out)
 
     def test_cap_growth_mid_run_crack_free(self, tmp_path):
-        """The documented seam-crack risk case (PLAN.md 'Cap growth vs
-        determinism'): a mid-run candidate-cap retry leaves earlier blocks
+        """The seam-crack risk case of cap growth vs determinism: a mid-run candidate-cap retry leaves earlier blocks
         computed with the small K and later ones with the grown K, across
         shared faces. The contract: the output is still a CLOSED MANIFOLD
         (the canonical face pass makes shared-face corners bitwise
@@ -209,7 +208,7 @@ class TestEndToEnd:
         probe can still underestimate — demand is only measurable by
         running a block)."""
         from mlsgpu_tpu.pipeline.reconstruct import (
-            BlockCaps, default_march_tile_cap, default_occ_tile_cap)
+            BlockCaps, default_march_tile_cap)
         from mlsgpu_tpu.utils.statistics import get_registry
 
         rng = np.random.default_rng(5)
@@ -229,7 +228,6 @@ class TestEndToEnd:
 
         def fresh_caps(k):
             return BlockCaps(k, cfg.cell_cap, cfg.vertex_cap, cfg.index_cap,
-                             occ_tile_cap=default_occ_tile_cap(cfg),
                              march_tile_cap=default_march_tile_cap(cfg))
 
         reg = get_registry()
